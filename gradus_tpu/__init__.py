@@ -1,4 +1,4 @@
-"""gradus_tpu — a TPU-native, end-to-end differentiable general-relativistic ray tracer.
+"""gradus_tpu — an accelerator-native, end-to-end differentiable general-relativistic ray tracer.
 
 Built from scratch in JAX (XLA / Pallas / shard_map), with the capabilities of the
 Julia reference Gradus.jl (astro-group-bristol/Gradus.jl): spacetime-agnostic geodesic
@@ -13,7 +13,7 @@ Design stance (vs. the reference, see SURVEY.md):
   ray batch (reference: per-trajectory OrdinaryDiffEq solves on CPU threads);
 - event detection (horizon capture / disc intersection) is an array predicate with
   Hermite-interpolant refinement (reference: SciML ContinuousCallback);
-- pixel tiles shard across a TPU mesh via `shard_map`, with `psum` reductions for
+- pixel tiles shard across a device mesh via `shard_map`, with `psum` reductions for
   histograms/images.
 """
 

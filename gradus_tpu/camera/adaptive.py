@@ -3,7 +3,7 @@
 Reference: `src/image-planes/{adaptive-grid,adaptive-sky,adaptive-plane}.jl` —
 a 3×3-subdividing quadtree over the (x, y) image plane or the (cos θ, φ) local
 sky, refining where a user predicate sees disparity between neighbouring
-values. The TPU-native shape (SURVEY.md §7.10): the refinement decision loop
+values. The accelerator-native shape (SURVEY.md §7.10): the refinement decision loop
 runs on host; each round evaluates one large batched trace on device.
 """
 

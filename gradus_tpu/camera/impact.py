@@ -33,7 +33,8 @@ def lnr_momentum_transform(m: AbstractMetric, x):
     """Matrix T with v = T @ p̄: ginv · lnrbasis."""
     ginv = m.inverse_metric(x)
     Tx = lnrbasis_matrix(m, x)
-    # full-f32 contraction: bf16 TPU default breaks the ray initial conditions
+    # full-f32 contraction: a TF32 product (the GPU's default for float32
+    # matmuls) keeps ~3 decimal digits and breaks the ray initial conditions
     return jnp.matmul(ginv, Tx, precision=jax.lax.Precision.HIGHEST)
 
 

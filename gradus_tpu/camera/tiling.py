@@ -1,20 +1,16 @@
-"""Spatially-coherent ray ordering for tile-resident integration.
+"""Spatially-coherent ray ordering for block-resident integration.
 
-The Pallas integrator (`integrate/pallas_solver.py`) advances one tile of
-``tile_rows * 128`` rays per grid step and exits the tile when all its rays are
-done, so executed work is Σ_tiles max(steps in tile). Raster order is the worst
-case: each tile is a thin strip that crosses the whole image (shadow edge, disc
-and far field in one tile → every tile pays the global max). Re-ordering rays
-so each tile is a compact pixel block makes per-tile step counts coherent.
-
-Measured on the 1024² Kerr a=0.998 flagship render (steps distribution:
-mean 59, p99 120, max 1489): raster tiles execute 181.6M lane-steps, 32×32
-pixel blocks 79.3M, a perfect cost-sorted oracle 66.1M — blocks recover ~90%
-of the oracle's win without knowing costs in advance.
+The Pallas integrator (`integrate/pallas_solver.py`) advances one block of
+``block_rays`` rays per program and exits the block when all its rays are
+done, so executed work is Σ_blocks max(steps in block). Raster order is the
+worst case: each block is a thin strip that crosses the image (shadow edge,
+disc and far field in one block → every block pays the global max).
+Re-ordering rays so each block is a compact pixel patch makes per-block step
+counts coherent.
 
 Reference analogue: dynamic per-thread scheduling in
 `src/tracing/tracing.jl:151-196` (EnsembleEndpointThreads) — threads grabbing
-rays one at a time never wait on a slow tile; here coherence substitutes for
+rays one at a time never wait on a slow block; here coherence substitutes for
 dynamic scheduling.
 """
 
@@ -49,8 +45,8 @@ def block_permutation(ny: int, nx: int, block: int = 32):
 
 
 def tile_permutation(ny: int, nx: int, block: int = 32):
-    """Blocking permutation for grids not divisible by ``block``: tiles are
-    clipped at the right/bottom edges (ragged tiles stay contiguous)."""
+    """Blocking permutation for grids not divisible by ``block``: patches
+    are clipped at the right/bottom edges (ragged patches stay contiguous)."""
     idx = np.arange(ny * nx, dtype=np.int64).reshape(ny, nx)
     out = []
     for by in range(0, ny, block):

@@ -1,10 +1,11 @@
 """Global configuration: precision policy and solver defaults.
 
 The Julia reference runs Float64 everywhere with ``abstol = reltol = 1e-9``
-(`src/tracing/configuration.jl:1`). On TPU, float64 is software-emulated and slow,
-so the framework is dtype-polymorphic: every entry point takes a ``dtype`` and the
-solver tolerances default from it. Golden-parity tests run float64 on CPU; the TPU
-fast path runs float32 with loosened tolerances.
+(`src/tracing/configuration.jl:1`). The framework is dtype-polymorphic: every
+entry point follows the dtype of its inputs and the solver tolerances default
+from it. Golden-parity tests run float64; the products run float32 with
+loosened tolerances (float64 runs natively on the GPU too, at half the
+float32 vector rate).
 """
 
 from __future__ import annotations
@@ -29,16 +30,16 @@ DEFAULT_RELTOL_F64 = 1e-9
 DEFAULT_ABSTOL_F32 = 1e-6
 DEFAULT_RELTOL_F32 = 1e-6
 
-# On TPU the default matmul/einsum precision is bfloat16 passes — fine for
-# neural nets, catastrophic for geodesic physics: every contraction in this
-# framework is a tiny 4×4/2×2 (metric dots, LNRF transforms, conserved
-# momenta), where bf16 rounding (~3 decimal digits) breaks Newton convergence
-# in the offset solver and poisons redshifts (observed: the whole CTF product
-# degenerates, gmin == gmax on TPU hardware while bitwise-correct on CPU).
-# These contractions are VPU-bound at these shapes — full f32 costs nothing.
-# The hot einsum sites ALSO pass precision=HIGHEST explicitly (so a user
-# flipping this global back cannot silently break the integrator); this
-# default protects everything else (jnp.linalg solves, user point functions).
+# Float32 matmuls/einsums may run in TF32 on the GPU, which keeps ~3 decimal
+# digits — fine for neural nets, catastrophic for geodesic physics: every
+# contraction in this framework is a tiny 4×4/2×2 (metric dots, LNRF
+# transforms, conserved momenta), where ~3-digit rounding breaks Newton
+# convergence in the offset solver and poisons redshifts (the CTF product
+# degenerates to gmin == gmax under reduced-precision products). At these
+# shapes full float32 costs nothing. The hot einsum sites ALSO pass
+# precision=HIGHEST explicitly (so a user flipping this global back cannot
+# silently break the integrator); this default protects everything else
+# (jnp.linalg solves, user point functions).
 #
 # NOTE: this is a process-global side effect at import time — it also raises
 # matmul precision (and lowers matmul throughput) for any co-resident JAX

@@ -4,7 +4,7 @@ Reference: `/root/reference/src/corona/adaptive-sample.jl` —
 `CoronaGridValues` payload (:1-28), dual-number emissivity Jacobian (:42-81),
 `check_refine` on g/J disparity (:123-140), `bin_emissivity_grid!` /
 `bin_redshift_grid!` / `bin_time_grid!` (:312-440), `step_block!` refinement
-driver (:603+). 845 LoC of research-grade Julia; the TPU-native shape is the
+driver (:603+). 845 LoC of research-grade Julia; the accelerator-native shape is the
 same host-driven quadtree (`camera/adaptive.AdaptiveGrid2D`) with each
 refinement round evaluated as ONE batched, jvp-augmented device trace.
 

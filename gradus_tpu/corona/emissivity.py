@@ -288,7 +288,7 @@ def emissivity_profile(
             ring_corona_profile_hybrid,
         )
 
-        # DEFAULT: the near-field hybrid (VERDICT r4 next #6). The plain
+        # DEFAULT: the near-field hybrid. The plain
         # β-slice fan estimates ε through fold caustics with an O(√Δβ) error
         # that wobbles ±25% at |r − r_ring| ≲ 1 r_g; the hybrid serves that
         # band from the slice-free adaptive-sky estimator and the fan

@@ -6,7 +6,7 @@ Reference: `src/corona/models/ring.jl` (β-slice "beachball" arm tracing:
 `split_into_branches` :566) and `src/corona/radial.jl:165-325`
 (`TimeDependentRadialDiscProfile`, `RingCoronaProfile`, `DiscCoronaProfile`).
 
-TPU-first redesign. The reference traces each β slice sequentially per CPU
+Batched redesign. The reference traces each β slice sequentially per CPU
 thread with a reusable integrator, then refines the slice's extremal radii
 with a host-driven golden-section optimiser (ring.jl:169-236, 2×80 extra
 solves per slice). Here every (ring, β slice, local angle) triple is ONE
@@ -245,7 +245,7 @@ class RingCoronaProfile:
 @dataclasses.dataclass(frozen=True)
 class NearFieldBlendedProfile:
     """RingCoronaProfile with the near-field emissivity served by the
-    adaptive-sky estimator (VERDICT r3 next #6).
+    adaptive-sky estimator.
 
     Any β-slice fan estimates ε near the source ring through fold caustics
     (each slice's hit-radius support edge has dρ/dδ = 0, so its contribution

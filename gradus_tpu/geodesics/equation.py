@@ -74,10 +74,10 @@ def geodesic_equation(m: AbstractMetric, x, v):
 
     The Christoffel contraction is fully scalar-expanded over the 5-component
     symmetric structure (the reference does the same expansion symbolically at
-    compile time with Symbolics+Tullio). On TPU this matters a lot: the naive
-    (..., 4, 4) einsum form lowers to lane-starved micro-matmuls, while the
-    expanded form is pure (N,)-wide elementwise VPU arithmetic that XLA fuses
-    into the integrator loop body.
+    compile time with Symbolics+Tullio). The expanded form is pure (N,)-wide
+    elementwise arithmetic that XLA fuses into the integrator loop body and
+    that the Pallas kernel evaluates per thread, instead of batches of tiny
+    (4, 4) matrix products.
     """
     a_t, a_r, a_th, a_ph = geodesic_acceleration(
         m,

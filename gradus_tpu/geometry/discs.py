@@ -67,9 +67,9 @@ class AbstractAccretionGeometry:
         return jnp.ones(x4.shape[:-1], dtype=bool)
 
     # --- component-form event interface (Pallas integrator) --------------
-    # Inside a TPU kernel the state is component-major; stacking a (..., 4)
-    # position would relayout onto a 4-wide minor axis. Defaults stack (fine
-    # under XLA / interpret mode); hot geometries override scalar-wise.
+    # Inside the Pallas kernel the state is component-major (one vector per
+    # component). Defaults stack a (..., 4) position and call the array
+    # form; hot geometries override scalar-wise.
     def crossing_indicator_c(self, t, r, th, ph):
         return self.crossing_indicator(jnp.stack([t, r, th, ph], axis=-1))
 

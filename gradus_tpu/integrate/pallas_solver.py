@@ -1,34 +1,34 @@
-"""Pallas TPU kernel for the geodesic integrator hot loop.
+"""Pallas kernel (Triton route) for the geodesic integrator hot loop.
 
 The XLA `lax.while_loop` path (`solver.integrate_rays`) streams the whole
-~30-array carry through HBM on every adaptive step and advances all rays in
-lockstep. This kernel removes both costs:
+~30-array carry through device memory on every adaptive step and advances all
+rays in lockstep. This kernel removes both costs:
 
-- **VMEM residency**: each grid step owns a tile of `R*128` rays; the entire
-  carry (state, FSAL cache, controller state, event bookkeeping) lives in
-  VMEM/registers for the whole integration. HBM traffic is one read of the
-  initial conditions and one write of the results per ray — the
-  speed-of-light minimum.
-- **Per-tile early exit**: the in-kernel `while_loop` ends when *this tile's*
-  rays are done. Since the grid is sequential on a TPU core, total work is
-  Σ_tiles max(steps in tile) — with spatially coherent pixel tiles this is
-  close to Σ_rays steps(ray), the same effect the host-driven
-  `CompactedIntegrator` buys with argsort/gather round trips, minus the
-  round trips.
+- **Register residency**: one GPU thread owns one ray. A program (thread
+  block) owns ``block_rays = 32·num_warps`` rays, and the whole carry (state,
+  FSAL cache, controller state, event bookkeeping) stays in that thread's
+  registers for the whole integration. Device-memory traffic is one read of
+  the initial conditions and one write of the results per ray.
+- **Per-block early exit**: the in-kernel `while_loop` ends when *this
+  block's* rays are done. Blocks run in parallel on the SMs and a finished
+  block frees its SM for the next one, so with cost-coherent ray blocks
+  (pilot ordering in `bench.py`) total work is close to Σ_rays steps(ray).
 
-Layout is state-major: a ray tile is a tuple of S `(R, 128)` blocks, one per
-state component, so every arithmetic op is a full-width VPU op (a ray-major
-``(N, 8)`` layout would waste 120 of 128 lanes). The RHS and the event
-functions are consumed in component form (`geodesic_acceleration`,
-`crossing_indicator_c` — see `gradus_tpu/geodesics/equation.py` and
-`geometry/discs.py`).
+Layout is state-major: a ray block is a tuple of S ``(block_rays,)`` vectors,
+one per state component, so every arithmetic op is elementwise across the
+block's threads. The RHS and the event functions are consumed in component
+form (`geodesic_acceleration`, `crossing_indicator_c` — see
+`gradus_tpu/geodesics/equation.py` and `geometry/discs.py`).
 
 Semantics match `solver.integrate_rays` (same Tsit5 tableau, PI controller,
 chart bounds, interpolant-sampled sign-change events with in-loop bisection
 and post-loop Newton polish — reference behavior per
 `src/tracing/configuration.jl`, `charts.jl`, `geometry/bootstrap.jl`).
-Differences: no dense output, no mesh segment events, f32/f64 follows the
-input dtype (on TPU use f32).
+Differences: no dense output, no mesh segment events; float32 or float64
+follows the input dtype.
+
+The kernel names its route (``backend="triton"``). It compiles only for a
+GPU; elsewhere pass ``interpret=True`` (the CPU tests do).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from gradus_tpu.integrate.status import StatusCodes
 from gradus_tpu.integrate.solver import (
@@ -56,9 +56,21 @@ from gradus_tpu.integrate.solver import (
 from gradus_tpu.integrate.tsit5 import TSIT5_C  # noqa: F401  (tableau shared)
 from gradus_tpu.integrate import tsit5 as _tsit5
 
-__all__ = ["pallas_integrate_rays", "PallasTracer"]
+__all__ = ["pallas_integrate_rays", "PallasTracer", "num_warps_for"]
 
-_LANES = 128
+_WARP = 32
+
+
+def num_warps_for(block_rays: int) -> int:
+    """Warps per program for a ray block: one ray per thread, so a block of
+    ``block_rays`` rays is ``block_rays / 32`` warps. Triton wants a power of
+    two, and a program holds at most 32 warps."""
+    block_rays = int(block_rays)
+    if block_rays < _WARP or block_rays > 32 * _WARP or block_rays & (block_rays - 1):
+        raise ValueError(
+            f"block_rays must be a power of two in [32, 1024], got {block_rays}"
+        )
+    return block_rays // _WARP
 
 
 # --- component-form Tsit5 ------------------------------------------------------
@@ -246,8 +258,7 @@ def _make_kernel(
             finite0 = jnp.isfinite(dt0)
             for i in range(S):
                 finite0 &= jnp.isfinite(y[i]) & jnp.isfinite(k1[i])
-            # Mosaic cannot carry i1 vectors through the while loop — masks
-            # ride as int32 0/1 and are re-boolified at the top of the body.
+            # masks ride the loop carry as int32 0/1
             alive = finite0.astype(jnp.int32)
             failed = (~finite0).astype(jnp.int32)
 
@@ -290,7 +301,8 @@ def _make_kernel(
         )
 
         def cond(c):
-            return jnp.any(c[6] > 0) & (c[-1] < max_steps)
+            # max, not any: Triton has no lowering for reduce_or
+            return (jnp.max(c[6]) > 0) & (c[-1] < max_steps)
 
         def body(c):
             (
@@ -451,9 +463,9 @@ def _make_kernel(
                 iters + 1,
             )
 
-        # The `any(alive)` condition is a vector→scalar sync; checking it every
-        # step stalls the VPU pipeline. Run a block of steps per check — dead
-        # rays do masked no-op work for at most steps_per_check-1 iterations.
+        # The loop condition is a block-wide reduction behind a barrier; run
+        # steps_per_check steps per check — dead rays do masked no-op work
+        # for at most steps_per_check-1 iterations.
         cf = lax.while_loop(
             cond, lambda c: lax.fori_loop(0, steps_per_check, lambda _, cc: body(cc), c), carry0
         )
@@ -470,11 +482,11 @@ def _make_kernel(
         cprev_ref[...] = cf[9]
         dcprev_ref[...] = cf[10]
         hth_ref[...] = cf[11]
-        # observability: loop iterations this tile actually executed (every ray
-        # in the tile occupies a lane for all of them) vs the iterations each
-        # ray was still alive for ("attempts" = accepted + rejected steps) —
-        # callers decompose executed lane-steps into scheduling waste (dead
-        # lanes) and adaptive-control rejects without host round trips
+        # observability: loop iterations this block actually executed (every
+        # ray in the block occupies a thread for all of them) vs the iterations
+        # each ray was still alive for ("attempts" = accepted + rejected
+        # steps) — callers decompose executed thread-steps into scheduling
+        # waste (dead threads) and adaptive-control rejects
         attempts_ref[...] = cf[12]
         iters_ref[...] = jnp.full(cf[7].shape, cf[13], jnp.int32)
 
@@ -512,21 +524,25 @@ def pallas_integrate_rays(
     dt_min: float = 1e-10,
     bisect_iters: int = 10,
     terminate_on_hit: bool = True,
-    tile_rows: int = 8,
+    block_rays: int = 128,
     steps_per_check: int = 8,
     event_method: str = "cubic",
-    interpret: bool | None = None,
+    interpret: bool = False,
     iter_cap: int | None = None,
     state: dict | None = None,
 ):
-    """Integrate a (N, S) ray batch with the tile-resident Pallas kernel.
+    """Integrate a (N, S) ray batch with the register-resident Pallas kernel.
 
     ``f_cm``/``crossing_cm``/``hit_cm`` take component tuples (S blocks /
     4 position blocks). ``lam_span``, chart bounds and tolerances are static
     python floats (one compile per configuration). Returns the raw per-ray
     outputs; hit polishing is done by the caller (`PallasTracer`).
 
-    Segmented execution: pass ``iter_cap`` to stop each tile after that many
+    ``block_rays`` rays (a power of two, one per thread) make one program.
+    The kernel compiles for a GPU only; ``interpret=True`` runs it through
+    the Pallas interpreter on any backend.
+
+    Segmented execution: pass ``iter_cap`` to stop each block after that many
     loop iterations, and feed the returned dict back via ``state`` (gathered /
     re-ordered however the caller likes) to resume exactly where the capped
     pass stopped — the tail-compaction scheme in `PallasTracer.trace`.
@@ -534,13 +550,17 @@ def pallas_integrate_rays(
     y0 = jnp.asarray(y0)
     N, S = y0.shape
     dtype = y0.dtype
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "pallas_integrate_rays compiles for a GPU (Pallas Triton route); "
+            f"the default backend is {jax.default_backend()!r}. "
+            "Pass interpret=True to run the kernel in the Pallas interpreter."
+        )
 
-    R = tile_rows
-    T = R * _LANES
-    n_tiles = max(1, -(-N // T))
-    Npad = n_tiles * T
+    T = int(block_rays)
+    num_warps = num_warps_for(T)
+    n_blocks = max(1, -(-N // T))
+    Npad = n_blocks * T
 
     lam0, lam1 = float(lam_span[0]), float(lam_span[1])
     resume = state is not None
@@ -566,20 +586,18 @@ def pallas_integrate_rays(
         resume=resume,
     )
 
-    blk_s = pl.BlockSpec((None, S, R, _LANES), lambda i: (i, 0, 0, 0))
-    blk_1 = pl.BlockSpec((None, R, _LANES), lambda i: (i, 0, 0))
+    blk_s = pl.BlockSpec((S, T), lambda i: (0, i))
+    blk_1 = pl.BlockSpec((T,), lambda i: (i,))
 
     def shaped(s_axis: bool, dt=dtype):
-        if s_axis:
-            return jax.ShapeDtypeStruct((n_tiles, S, R, _LANES), dt)
-        return jax.ShapeDtypeStruct((n_tiles, R, _LANES), dt)
+        return jax.ShapeDtypeStruct((S, Npad) if s_axis else (Npad,), dt)
 
     state_specs = [blk_s] + [blk_1] * 9  # k1 then the 9 per-ray scalars
     in_specs = [blk_s] + (state_specs if resume else [])
 
     call = pl.pallas_call(
         kernel,
-        grid=(n_tiles,),
+        grid=(n_blocks,),
         in_specs=in_specs,
         out_specs=(
             blk_s,  # y   (for hit rays: hit-step START state — see kernel note)
@@ -593,7 +611,7 @@ def pallas_integrate_rays(
             blk_1,  # c_prev
             blk_1,  # dc_prev
             blk_1,  # hit_theta
-            blk_1,  # tile iters
+            blk_1,  # block iters
             blk_1,  # attempts
         ),
         out_shape=(
@@ -611,22 +629,24 @@ def pallas_integrate_rays(
             shaped(False, jnp.int32),
             shaped(False, jnp.int32),
         ),
+        backend="triton",
+        # the carry lives in registers; there is no tile stream to pipeline
+        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
         interpret=interpret,
+        name="geodesic_tsit5",
     )
 
-    # (N, S) -> (n_tiles, S, R, 128); pad rays with NaN (flagged failed/dead
-    # in the kernel's finiteness screen, so they never cost loop iterations)
-    def tile_s(a, fill):
-        pad = jnp.full((Npad, S), fill, a.dtype).at[:N].set(a)
-        return jnp.transpose(pad.reshape(n_tiles, R, _LANES, S), (0, 3, 1, 2))
+    # (N, S) -> (S, Npad); pad rays with NaN (flagged failed/dead in the
+    # kernel's finiteness screen, so they never cost loop iterations)
+    def block_s(a, fill):
+        return jnp.full((Npad, S), fill, a.dtype).at[:N].set(a).T
 
-    def tile_1(a, fill):
-        pad = jnp.full((Npad,), fill, a.dtype).at[:N].set(a)
-        return pad.reshape(n_tiles, R, _LANES)
+    def block_1(a, fill):
+        return jnp.full((Npad,), fill, a.dtype).at[:N].set(a)
 
-    ins = [tile_s(y0, jnp.nan)]
+    ins = [block_s(y0, jnp.nan)]
     if resume:
-        ins.append(tile_s(state["k1"], jnp.nan))
+        ins.append(block_s(state["k1"], jnp.nan))
         # padding rows resume as already-finished (λ ≥ λ1) so they stay inert
         fills = dict(
             lam=lam1,
@@ -640,19 +660,17 @@ def pallas_integrate_rays(
             hit_theta=0.0,
         )
         for k in _STATE_KEYS[1:]:
-            ins.append(tile_1(state[k], fills[k]))
+            ins.append(block_1(state[k], fills[k]))
 
     outs = call(*ins)
 
-    def untile(a):
-        if a.ndim == 4:  # (n_tiles, S, R, 128) -> (N, S)
-            return jnp.transpose(a, (0, 2, 3, 1)).reshape(Npad, S)[:N]
-        return a.reshape(Npad)[:N]
+    def unblock(a):
+        return a.T[:N] if a.ndim == 2 else a[:N]
 
     (
         y_f, k1_f, lam_f, dt_f, lnq, status, steps, failed, cprev, dcprev,
-        hth, titers, attempts,
-    ) = map(untile, outs)
+        hth, biters, attempts,
+    ) = map(unblock, outs)
     # hit rays exit the kernel UNcommitted (y/k1/lam at the hit-step start, dt
     # = the step span), so the polish inputs alias the main outputs — the slim
     # carry eliminated the dedicated hit_* bookkeeping
@@ -668,7 +686,7 @@ def pallas_integrate_rays(
         c_prev=cprev,
         dc_prev=dcprev,
         hit_theta=hth,
-        tile_iters=titers,
+        block_iters=biters,
         attempts=attempts,
         hit_y=y_f,
         hit_k=k1_f,
@@ -679,7 +697,7 @@ def pallas_integrate_rays(
 
 class PallasTracer:
     """High-throughput tracer over a fixed (metric, geometry) pair, running the
-    tile-resident Pallas integrator. Drop-in alternative to `tracing.Tracer`
+    register-resident Pallas integrator. Drop-in alternative to `tracing.Tracer`
     for rendering/table workloads (host-driven; not differentiable end-to-end
     — use `trace_geodesics` inside jit/jvp contexts).
 
@@ -704,14 +722,13 @@ class PallasTracer:
         n_interp: int = 8,
         bisect_iters: int = 10,
         newton_iters: int = 3,
-        tile_rows: int = 8,
+        block_rays: int = 128,
         steps_per_check: int = 8,
         event_method: str = "cubic",
         segment_iters: int | None = None,
         tail_bucket: int = 16384,
-        tail_tile_rows: int = 8,
         dtype=None,
-        interpret: bool | None = None,
+        interpret: bool = False,
     ):
         from gradus_tpu import config as _config
         from gradus_tpu.geodesics.equation import (
@@ -749,12 +766,12 @@ class PallasTracer:
         self.max_steps = max_steps
         self.n_interp = n_interp
         self.bisect_iters = bisect_iters
-        self.tile_rows = tile_rows
+        num_warps_for(block_rays)  # validate early
+        self.block_rays = int(block_rays)
         self.steps_per_check = steps_per_check
         self.event_method = event_method
         self.segment_iters = segment_iters
         self.tail_bucket = tail_bucket
-        self.tail_tile_rows = tail_tile_rows
         self.interpret = interpret
 
         def f_cm(ys):
@@ -812,10 +829,9 @@ class PallasTracer:
         self._finish = _finish
 
         # jitted end-to-end programs cached per (N, S, λ-span): without this,
-        # every call re-traces + re-lowers the whole kernel on the host
-        # (~0.9 s — measured to dominate device time on the 1024² render)
+        # every call re-traces and re-lowers the whole kernel on the host
         self._compiled = {}
-        self.last_tile_iters = None
+        self.last_block_iters = None
 
     def _integrate_kwargs(self):
         return dict(
@@ -837,8 +853,8 @@ class PallasTracer:
         """Traceable (jit-composable) trace of a constrained (N, S) batch.
 
         Returns ``(GeodesicPoint, aux)`` where aux carries per-ray
-        observability arrays (``tile_iters``: the kernel-loop iterations the
-        ray's tile executed; ``steps``: the ray's accepted step count;
+        observability arrays (``block_iters``: the kernel-loop iterations the
+        ray's block executed; ``steps``: the ray's accepted step count;
         ``unfinished``: rays still mid-flight at exit — 0 unless a pathological
         workload overflows ``tail_bucket`` or ``max_steps``). Compose this
         under one outer `jax.jit` with camera permutations / shading to avoid
@@ -846,11 +862,10 @@ class PallasTracer:
 
         When ``segment_iters`` is set and the batch is larger than
         ``tail_bucket``, integration is two kernel passes: a full-width pass
-        capped at ``segment_iters`` loop iterations (big tiles, cheap
-        instruction issue), then the surviving tail — typically < 1% of rays,
-        the photon-ring cluster — is gathered into a ``tail_bucket``-wide
-        resume pass with small tiles, ordered by the estimated remaining step
-        count (λ1−λ)/dt so each tail tile is cost-coherent. This removes the
+        capped at ``segment_iters`` loop iterations, then the surviving tail —
+        typically < 1% of rays, the photon-ring cluster — is gathered into a
+        ``tail_bucket``-wide resume pass, ordered by the estimated remaining
+        step count (λ1−λ)/dt so each tail block is cost-coherent. This removes the
         lockstep waste the reference avoids with dynamic thread scheduling
         (tracing.jl:151-196) at the cost of one gather/scatter, with no host
         round trips."""
@@ -860,14 +875,14 @@ class PallasTracer:
 
         if self.segment_iters is None or N <= self.tail_bucket:
             out = pallas_integrate_rays(
-                self._f_cm, y0, (lam0, lam1), tile_rows=self.tile_rows, **kw
+                self._f_cm, y0, (lam0, lam1), block_rays=self.block_rays, **kw
             )
         else:
             st1 = pallas_integrate_rays(
                 self._f_cm,
                 y0,
                 (lam0, lam1),
-                tile_rows=self.tile_rows,
+                block_rays=self.block_rays,
                 iter_cap=self.segment_iters,
                 **kw,
             )
@@ -876,9 +891,8 @@ class PallasTracer:
                 & (st1["failed"] == 0)
                 & (st1["lam"] < lam1 - 1e-12)
             )
-            # O(N) survivor compaction (a full argsort costs ~15 ms at 1M rays
-            # — more than the lane-steps it saves): scatter each survivor's ray
-            # index to its cumsum slot. Unfilled/overflow slots point at ray N:
+            # O(N) survivor compaction instead of a full argsort: scatter each
+            # survivor's ray index to its cumsum slot. Unfilled/overflow slots point at ray N:
             # gathers clip to ray N-1 (a duplicate — integrated twice, written
             # back once) and scatters drop out-of-range updates.
             K = self.tail_bucket
@@ -890,7 +904,7 @@ class PallasTracer:
                 .set(jnp.arange(N, dtype=jnp.int32), mode="drop")[:K]
             )
             # order the K-sized tail by estimated remaining steps (λ1−λ)/dt,
-            # descending, so pass-2 tiles have coherent costs — a K-sized sort
+            # descending, so pass-2 blocks have coherent costs — a K-sized sort
             est = (lam1 - st1["lam"]) / jnp.maximum(st1["dt"], 1e-30)
             key = jnp.where(alive, -est, jnp.inf)
             idx = idx[jnp.argsort(key[jnp.minimum(idx, N - 1)])]
@@ -899,14 +913,14 @@ class PallasTracer:
                 self._f_cm,
                 st1["y"][idx],
                 (lam0, lam1),
-                tile_rows=self.tail_tile_rows,
+                block_rays=self.block_rays,
                 state=sub_state,
                 **kw,
             )
             out = {
                 k: st1[k].at[idx].set(st2[k]) for k in ("y",) + _STATE_KEYS
             }
-            out["tile_iters"] = st1["tile_iters"].at[idx].add(st2["tile_iters"])
+            out["block_iters"] = st1["block_iters"].at[idx].add(st2["block_iters"])
             out["attempts"] = st1["attempts"].at[idx].add(st2["attempts"])
             out.update(
                 hit_y=out["y"], hit_k=out["k1"], hit_dt=out["dt"], hit_lam=out["lam"]
@@ -919,7 +933,7 @@ class PallasTracer:
         )
         gp = self._finish(out, y0, lam0)
         aux = {
-            "tile_iters": out["tile_iters"],
+            "block_iters": out["block_iters"],
             "steps": out["steps"],
             "attempts": out["attempts"],
             "unfinished": unfinished,
@@ -944,6 +958,6 @@ class PallasTracer:
             y0 = jnp.concatenate([x, v], axis=-1)
         lam_span = (float(lam_span[0]), float(lam_span[1]))
         gp, aux = self._program(y0.shape, lam_span)(y0)
-        self.last_tile_iters = aux["tile_iters"]
+        self.last_block_iters = aux["block_iters"]
         self.last_steps = aux["steps"]
         return gp

@@ -281,7 +281,7 @@ class Tracer:
     """Reusable high-throughput tracer over a fixed (metric, geometry) pair.
 
     Wraps `CompactedIntegrator` (segmented integration with alive-ray
-    compaction — the TPU analogue of the reference's dynamically-scheduled
+    compaction — the batched analogue of the reference's dynamically-scheduled
     `EnsembleEndpointThreads` pool, `src/tracing/tracing.jl:151-196`).
     Construct once, call many times: jitted programs are cached per
     working-set shape. Host-driven, so NOT usable inside jit/jvp — use

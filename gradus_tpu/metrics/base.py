@@ -50,10 +50,9 @@ class AbstractMetric:
     def components5(self, r, theta):
         """The 5 components as a TUPLE of arrays (no trailing stack axis).
 
-        This is the kernel-friendly form: inside a Pallas TPU kernel each
-        component is a full (sublane, lane)-tiled block, whereas a stacked
-        ``(..., 5)`` array puts the components on a 5-wide minor axis that
-        wastes 123 of 128 lanes. The default unstacks ``components``; hot
+        This is the kernel-friendly form: inside the Pallas kernel each
+        component is its own per-ray vector, with no stacked ``(..., 5)``
+        axis to build and index. The default unstacks ``components``; hot
         metrics (Kerr) override this natively and derive ``components``."""
         g = self.components(r, theta)
         return tuple(g[..., i] for i in range(5))

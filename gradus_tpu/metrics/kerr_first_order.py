@@ -5,7 +5,7 @@ the 4-position with velocities reconstructed from (E, L, Q) and flips the
 radial/angular signs with callbacks when the effective potentials Vr, Vθ cross
 zero (first-order.jl:163-179).
 
-TPU redesign: integrate in **Mino time** τ (dλ = Σ dτ), where the Carter
+Redesign: integrate in **Mino time** τ (dλ = Σ dτ), where the Carter
 equations separate and the second-order form
 
     d²r/dτ² = ½ R'(r),    d²θ/dτ² = ½ Θ'(θ),

@@ -1,10 +1,10 @@
 """Device-mesh helpers for sharding ray batches.
 
 The workload is embarrassingly parallel over rays (SURVEY.md §2: the reference
-scales only via CPU thread ensembles). TPU-native scaling: one mesh axis
-("rays"), pixel tiles sharded across it with `shard_map`, `psum` only at
-reduction points (histogram binning, image gather, parameter-gradient
-all-reduce). Multi-host runs the identical program over DCN.
+scales only via CPU thread ensembles). Scaling is one mesh axis ("rays"),
+pixel tiles sharded across it with `shard_map`, `psum` only at reduction
+points (histogram binning, image gather, parameter-gradient all-reduce). The
+GPUs of one host are joined all to all, so a 1-D mesh in device order fits.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ points, exactly as the reference's thread ensembles reduce into shared arrays
 - `sharded_emissivity`                — `pmin`/`pmax` bin-range agreement +
                                         `psum` of (count, g, t) bin sums.
 
-Multi-host runs the identical program over DCN.
+Between GPUs XLA runs the collectives through NCCL.
 """
 
 from __future__ import annotations
@@ -70,12 +70,12 @@ def sharded_trace(m, x, v, lam_span, mesh=None, **trace_kwargs):
 
 
 def sharded_pallas_trace(tracer, y0, lam_span, mesh=None):
-    """The flagship Pallas kernel under the device mesh (VERDICT r3 next #4).
+    """The Pallas integrator kernel under the device mesh.
 
-    Each device runs the tile-resident kernel on its ray shard — the kernel
-    is already tile-local, so sharding composes trivially: `shard_map` splits
-    the ray axis, `pallas_call` tiles within the shard, and no collective is
-    needed until a downstream reduction. Returns the GeodesicPoint batch
+    Each device runs the kernel on its ray shard — the kernel is already
+    block-local, so sharding composes trivially: `shard_map` splits the ray
+    axis, `pallas_call` blocks within the shard, and no collective is needed
+    until a downstream reduction. Returns the GeodesicPoint batch
     (ray-sharded). Reference swap point:
     `ext/GradusDiffEqGPUExt/GradusDiffEqGPUExt.jl:10-31`.
 
@@ -162,7 +162,7 @@ def sharded_lineprofile(
     """Distributed BinningMethod line profile (reference
     line-profiles.jl:157-198 over `EnsembleEndpointThreads`): the polar-plane
     ray batch shards over the mesh; each device traces its rays and bins its
-    local flux histogram, which is `psum`-reduced over ICI so every device
+    local flux histogram, which is `psum`-reduced over the mesh so every device
     holds the identical normalized profile. Returns (bins, flux)."""
     from gradus_tpu.camera.grids import GeometricGrid
     from gradus_tpu.camera.planes import PolarPlane

@@ -3,7 +3,7 @@
 Reference: `src/redshift.jl:1-203` (`RedshiftFunctions` module). The reference
 keeps this analytic path both as a fast path for Kerr and as an independent
 cross-check of the generic dot-product redshift; this module serves the same
-two roles for the TPU build (the cross-check test lives in
+two roles here (the cross-check test lives in
 `tests/test_redshift_analytic.py`).
 
 All formulas are Cunningham et al. (1975) appendix A, in Boyer-Lindquist

@@ -4,7 +4,7 @@ The reference persists `CunninghamTransferTable`s as table artifacts for the
 spectral-fitting model (`src/transfer-functions/types.jl:14-118`,
 `lib/GradusSpectralModels`) and reuses `EndpointRenderCache` to re-apply point
 functions without re-tracing (`src/rendering/cache.jl:1-59`). This module is
-the TPU-framework equivalent: any registered pytree dataclass (tables, grids,
+the JAX equivalent: any registered pytree dataclass (tables, grids,
 profiles, render caches — including nested metrics / GeodesicPoint payloads)
 round-trips through a single portable ``.npz`` file (no pickle)."""
 

@@ -9,7 +9,7 @@ gmin/gmax, rescales the Jacobian to ∂g✶ and forms
 
 then splits the samples into upper/lower branches and interpolates over g✶.
 
-TPU redesign: all radii process all angles simultaneously through the batched
+Batched redesign: all radii process all angles simultaneously through the batched
 offset solver; the golden-section extremal search advances every radius in
 lockstep (probe samples are collected into the dataset exactly like the
 reference's accumulator); branches are resampled onto a fixed g✶ grid so the
@@ -346,7 +346,7 @@ def cunningham_transfer_function(
     sin2 = jnp.sin(TH) ** 2
     ellipse = RE * jnp.abs(cos_i) / jnp.sqrt(cos_i**2 * (1.0 - sin2) + sin2)
     bend = 1.0 + jnp.sin(inc) * jnp.maximum(jnp.sin(TH), 0.0)
-    # f32 only: the init composes with the Newton stall exit for the TPU
+    # f32 only: the init composes with the float32 Newton stall exit for
     # product speed. In f64 the cold reference start is kept — the init
     # perturbs which iterate first crosses zero_atol, which wobbles the
     # CTF moment anchors at exactly their 1e-3 tolerance scale.
@@ -357,8 +357,8 @@ def cunningham_transfer_function(
 
     pallas_solver = None
     if backend == "pallas":
-        # TPU product fast path (transfer/pallas_ctf.py): FD Newton through
-        # the tile-resident kernel. Thin discs only — the kernel bakes
+        # fast path (transfer/pallas_ctf.py): FD Newton through the Pallas
+        # kernel. Thin discs only — the kernel bakes
         # geometry parameters as compile-time scalars, so per-radius datum
         # planes (thick discs) stay on the XLA jvp path.
         from gradus_tpu.transfer.pallas_ctf import get_pallas_ctf_solver
@@ -415,7 +415,7 @@ def cunningham_transfer_function(
     cond_s = cond_s.reshape(nr, N)
 
     # --- golden-section extremal search (batched over radii) -------------
-    # TPU-first restructure (VERDICT r3 next #2b): the whole search — both
+    # Restructure: the whole search — both
     # extremal sides at once — runs as ONE jitted scan of g-only probes
     # (`offset_probe`, no Jacobian), each warm-started from the previous
     # probe's solved offset (the probe θ moves geometrically, so Newton

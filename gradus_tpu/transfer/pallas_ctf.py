@@ -1,19 +1,18 @@
-"""Pallas-kernel-backed Cunningham-transfer-function solver (TPU product
-fast path).
+"""Pallas-kernel-backed Cunningham-transfer-function solver (the fast
+``lineprofile(..., backend="pallas")`` path).
 
 The CTF pipeline's cost is ~10⁴ Newton offset solves per profile, each
 iteration a derivative of the image-plane→disc map through a full geodesic
 integration (reference: ForwardDiff duals through OrdinaryDiffEq,
 `src/tracing/precision-solvers.jl:73-131`; XLA path here: `jax.jvp` through
 `integrate_rays`, `transfer/solvers.py`). The jvp doubles every RHS and
-streams the ~25-array carry through HBM each step — measured 29 ms per
-8000-ray Newton iteration on a v5-lite chip.
+streams the ~25-array carry through device memory each step.
 
 This module replaces the derivative with a FINITE-DIFFERENCE pair traced
-through the tile-resident Pallas kernel (`integrate/pallas_solver.py`, the
-9M rays/s flagship path): one (2N,) kernel launch per Newton iteration gives
-ρ(r₀) and ρ(r₀+h) simultaneously. The redshift field needs no tracing at all
-— with the conserved-quantity formulation g(α, β) = 1/(uᵗ(ρ) − λ(α,β)·uᶲ(ρ)),
+through the register-resident Pallas kernel (`integrate/pallas_solver.py`):
+one (2N,) kernel launch per Newton iteration gives ρ(r₀) and ρ(r₀+h)
+simultaneously. The redshift field needs no tracing at all — with the
+conserved-quantity formulation g(α, β) = 1/(uᵗ(ρ) − λ(α,β)·uᶲ(ρ)),
 λ = p_φ/(−p_t) is a closed form of the initial conditions and u is the
 Keplerian four-velocity, so ∂g/∂(α,β) splits into analytic λ/u derivatives
 plus the FD ρ derivatives. The Jacobian |∂(α,β)/∂(ρ,g)| therefore costs ONE
@@ -21,10 +20,10 @@ central-difference 4N-ray launch instead of two jvp integrations.
 
 Accuracy: the safeguarded Newton tolerates the FD slope noise (bracketing +
 best-iterate fallback, identical to the XLA path); the J field uses central
-differences at h ∝ √ε_ρ. f32-only by design — this is the TPU production
-path; golden-parity f64 runs stay on the XLA jvp path. Parity vs the XLA f32
-path is asserted in tests/test_pallas_ctf.py (interpret mode) and measured on
-hardware in PERF.md.
+differences at h ∝ √ε_ρ. Built for float32; golden-parity float64 runs stay
+on the XLA jvp path. Parity vs the XLA f32 path is asserted in
+tests/test_pallas_ctf.py (interpret mode); the first-moment drift on the
+card is in PERF.md.
 """
 
 from __future__ import annotations
@@ -64,18 +63,17 @@ class PallasCTFSolver:
         alpha0: float = 0.0,
         beta0: float = 0.0,
         gtol: float = 1e-2,
-        tile_rows: int = 8,
+        block_rays: int = 128,
         fd_h: float = 4e-4,
-        # hardware-swept optimum (PERF.md round 5): h = 2.5e-3·(1+|r|) is
-        # truncation/noise balanced — m1 drift 2.4e-4 (vs 1.4e-3 at 5e-3,
-        # 2.0e-3 at 1.25e-3 where FD slope noise also destabilizes Newton)
-        # and the fastest of the sweep
+        # h = 2.5e-3·(1+|r|) balances FD truncation against float32 slope
+        # noise: smaller steps destabilize the Newton, larger ones straddle
+        # image branches (first-moment drift on the card: PERF.md)
         fd_h_ab: float = 2.5e-3,
         max_iter: int = 20,
         stall_iters: int = 5,
         zero_atol: float = 1e-7,
         worst_accuracy_factor: float = 1e-4,
-        interpret: bool | None = None,
+        interpret: bool = False,
         dtype=jnp.float32,
     ):
         from gradus_tpu.integrate.pallas_solver import PallasTracer
@@ -96,7 +94,7 @@ class PallasCTFSolver:
             geometry=d,
             gtol=gtol,
             chart_outer=2.0 * float(self.x[1]),
-            tile_rows=tile_rows,
+            block_rays=block_rays,
             interpret=interpret,
             dtype=dtype,
         )
@@ -335,7 +333,7 @@ def get_pallas_ctf_solver(m, x, d, **kwargs) -> PallasCTFSolver:
         # dtype and interpret are NOT numeric kwargs — key them explicitly so
         # an f64/interpret run never reuses an f32/compiled solver
         str(jnp.dtype(kwargs.get("dtype", jnp.float32))),
-        kwargs.get("interpret", None),
+        kwargs.get("interpret", False),
         tuple(sorted((k, float(v)) for k, v in kwargs.items() if isinstance(v, (int, float)))),
     )
     if key not in _SOLVER_CACHE:

@@ -114,7 +114,7 @@ def find_offset_for_radius(
     if lam_max is None:
         lam_max = 2.0 * x[1]
 
-    # dtype-aware tolerances (VERDICT r3 weak #1b): the f64 default
+    # dtype-aware tolerances: the f64 default
     # zero_atol = 1e-7 sits below float32 resolution of ρ ~ r_target, so in
     # f32 the loop would never flag convergence and the acceptance test would
     # reject legitimately-converged solves. Scale both to the dtype.
@@ -148,9 +148,8 @@ def find_offset_for_radius(
     # EVERY lane is finished, and in f32 a handful of near-fold lanes bounce
     # at the residual noise floor without ever crossing zero_atol — without a
     # stall exit they force the full max_iter on the whole batch every call
-    # (measured: the 8000-ray CTF sweep always ran 30 iterations; typical
-    # lanes converge in ~6; stall exit took the TPU CTF product from 2.0 to
-    # 1.1 s/profile). A lane that hasn't improved its best |y| by 2× in
+    # (the 8000-ray CTF sweep always ran 30 iterations; typical lanes
+    # converge in ~6). A lane that hasn't improved its best |y| by 2× in
     # `stall_iters` consecutive iterations is finished — it already reports
     # its best-seen iterate. f32 ONLY: in f64 every lane genuinely converges
     # (the loop exits on all-converged well before max_iter), and cutting
@@ -497,7 +496,7 @@ def offset_probe(
     arrival time, NO Jacobian (≈3× cheaper per probe than the full
     workhorse). Returns (r_off, g, t, ok). The golden-section driver collects
     probe offsets and evaluates `offset_jacobian_at` once, batched, at the
-    end (VERDICT r3 next #2b: probe traces batched into one launch)."""
+    end."""
     x = jnp.asarray(x)
     if lam_max is None:
         lam_max = 2.0 * x[1]

@@ -6,7 +6,7 @@ to a target 3-position, with a continuous distance callback terminating inside
 `d_tol`) and `_is_visible` (re-trace against the occluding geometry and check
 the endpoint has not moved).
 
-TPU-first redesign: instead of a serial NelderMead whose per-iteration control
+Batched redesign: instead of a serial NelderMead whose per-iteration control
 flow cannot batch, each refinement round evaluates a full (n_grid × n_grid)
 fan of impact-parameter candidates per target in ONE batched dense trace,
 keeps the argmin, and shrinks the search window around it. Rounds are a fixed
@@ -209,7 +209,7 @@ def refine_for_target(
     """Differentiable polish of the image-plane (α, β) onto a target
     3-position, starting from a pattern-search seed ``ab0``.
 
-    Two pieces (VERDICT r2 next #9):
+    Two pieces:
 
     - a Gauss-Newton loop on the softmin-smoothed 3D miss vector, whose (3×2)
       Jacobian comes from forward-mode AD THROUGH the integrator (the

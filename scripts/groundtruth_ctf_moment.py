@@ -1,4 +1,4 @@
-"""Independent high-precision CTF moment (VERDICT r4 next #2).
+"""Independent high-precision CTF moment.
 
 Ground-truths the disputed raw-sample moment anchors Σ(f·g✶)/N at
 (a = 0.998; i = 3°, 30°, 35°; rₑ = 4) — and a well-conditioned control —
@@ -30,10 +30,11 @@ formulation into the evidence chain at r_obs = 1e3 where it is healthy —
 there the two integrators' (ρ, J) maps agree, tying the AD-tracer map used
 here to the independent Carter equations).
 
-Run:  env PYTHONPATH=/root/repo python scripts/groundtruth_ctf_moment.py [--fast]
-Writes per-anchor sample dumps + moments to /root/repo/scripts/groundtruth_ctf.npz
+Run from the checkout root:  python scripts/groundtruth_ctf_moment.py [--fast]
+Writes per-anchor sample dumps + moments to scripts/groundtruth_ctf.npz
 """
 
+import os
 import sys
 import time
 
@@ -400,5 +401,5 @@ if __name__ == "__main__":
             f"({res['seconds']:.0f}s)",
             flush=True,
         )
-    np.savez("/root/repo/scripts/groundtruth_ctf.npz", **out)
+    np.savez(os.path.join(os.path.dirname(os.path.abspath(__file__)), "groundtruth_ctf.npz"), **out)
     print("saved scripts/groundtruth_ctf.npz")

@@ -1,139 +1,158 @@
-"""A/B harness: PallasTracer vs XLA Tracer on the flagship bench config.
+"""Kernel-vs-XLA timing on the card, one process, in turns.
 
-Usage: python scripts/pallas_ab.py [side] [tile_rows] [steps_per_check]
-Prints agreement stats + timings. VERDICT r2 next-step #1.
+    python scripts/pallas_ab.py [--side 1024] [--quick]
+
+Times, on one GPU, each product three ways where it has them:
+
+- render (1024², bench.py's config): plain `rendergeodesics`, the `Tracer`
+  compaction path (BENCH_BACKEND=xla) and the pilot-ordered kernel
+  (BENCH_BACKEND=pallas) over block_rays x steps_per_check;
+- BinningMethod (1000×1000 polar plane): plain `lineprofile`, `Tracer`,
+  and the pilot-ordered kernel;
+- TransferFunctionMethod (100 radii): `lineprofile(backend="xla")` and
+  `backend="pallas"`.
+
+The bench.py runs print their own JSON lines; the plain runs print theirs
+here. Every time ends in `jax.block_until_ready`.
 """
 
+from __future__ import annotations
+
+import argparse
+import json
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
 
-import numpy as np
+import numpy as np  # noqa: E402
 
-os.environ.setdefault("JAX_TRACEBACK_FILTERING", "off")
 
-import jax
-import jax.numpy as jnp
+def _time(fn, reps):
+    import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    t0 = time.perf_counter()
+    jax.block_until_ready(fn())
+    first = time.perf_counter() - t0
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        ts.append(time.perf_counter() - t0)
+    return first, ts
 
-from gradus_tpu.metrics import KerrMetric
-from gradus_tpu.geometry import ThinDisc
-from gradus_tpu.integrate import Tracer, StatusCodes
-from gradus_tpu.integrate.pallas_solver import PallasTracer
-from gradus_tpu.camera.impact import map_impact_parameters
-from gradus_tpu.redshift import redshift_pointfunction
+
+def plain_render(side, reps):
+    import jax
+    import jax.numpy as jnp
+    import gradus_tpu as gt
+
+    f32 = jnp.float32
+    m = gt.KerrMetric(M=jnp.asarray(1.0, f32), a=jnp.asarray(0.998, f32))
+    x = jnp.asarray([0.0, 1000.0, np.deg2rad(75.0), 0.0], f32)
+    pf = gt.ConstPointFunctions.redshift(m, x) @ gt.ConstPointFunctions.filter_intersected()
+    run = jax.jit(
+        lambda x: gt.rendergeodesics(
+            m, x, gt.ThinDisc(0.0, 50.0), 2200.0, image_width=side, image_height=side,
+            alpha_lims=(-28.0, 28.0), beta_lims=(-18.0, 18.0), pf=pf,
+        )[2]
+    )
+    first, ts = _time(lambda: run(x), reps)
+    _report("render", "plain rendergeodesics", first, ts, rays=side * side)
+
+
+def plain_binning(n, reps):
+    import jax
+    import jax.numpy as jnp
+    import gradus_tpu as gt
+    from gradus_tpu.camera.grids import GeometricGrid
+    from gradus_tpu.camera.planes import PolarPlane
+
+    f32 = jnp.float32
+    m = gt.KerrMetric(M=jnp.asarray(1.0, f32), a=jnp.asarray(0.998, f32))
+    x = jnp.asarray([0.0, 1000.0, np.deg2rad(70.0), 0.0], f32)
+    plane = PolarPlane(GeometricGrid(), Nr=n, Ntheta=n, r_max=50.0)
+    bins = jnp.linspace(0.1, 1.4, 200, dtype=f32)
+    run = jax.jit(
+        lambda x: gt.lineprofile(
+            m, x, gt.ThinDisc(0.0, jnp.inf), bins=bins, method=gt.BinningMethod(),
+            plane=plane, max_re=200.0, lam_max=2000.0,
+        )[1]
+    )
+    first, ts = _time(lambda: run(x), reps)
+    _report("binning", "plain lineprofile(BinningMethod)", first, ts, rays=n * n)
+
+
+def _report(product, path, first, ts, **extra):
+    print(
+        json.dumps(
+            {
+                "ab": product,
+                "path": path,
+                "first_s": first,
+                "median_s": float(np.median(ts)),
+                "all_s": ts,
+                **extra,
+            }
+        ),
+        flush=True,
+    )
+
+
+def bench_run(env, reps):
+    """One bench.py run in this process with the given BENCH_* settings."""
+    import bench
+
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        del os.environ[k]
+    os.environ.update({k: str(v) for k, v in env.items()})
+    os.environ["BENCH_REPS"] = str(reps)
+    print(json.dumps({"bench_env": env}), flush=True)
+    t0 = time.perf_counter()
+    try:
+        rc = bench.main()
+    except Exception as e:  # one failed configuration does not stop the rest
+        print(json.dumps({"bench_error": repr(e)[:2000]}), flush=True)
+        return
+    print(json.dumps({"bench_rc": rc, "wall_s": time.perf_counter() - t0}), flush=True)
 
 
 def main():
-    side = int(sys.argv[1]) if len(sys.argv) > 1 else 256
-    tile_rows = int(sys.argv[2]) if len(sys.argv) > 2 else 8
-    spc = int(sys.argv[3]) if len(sys.argv) > 3 else 8
-    dtype = jnp.float32
-    n = side * side
-    lam_max = 2200.0
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--side", type=int, default=1024)
+    ap.add_argument("--quick", action="store_true", help="default kernel config only")
+    args = ap.parse_args()
 
-    m = KerrMetric(M=jnp.asarray(1.0, dtype), a=jnp.asarray(0.998, dtype))
-    d = ThinDisc(inner_r=0.0, outer_r=50.0)
-    x_obs = jnp.asarray([0.0, 1000.0, np.deg2rad(75.0), 0.0], dtype)
+    import jax
 
-    alphas = jnp.linspace(-28.0, 28.0, side, dtype=dtype) + 1e-4
-    betas = jnp.linspace(-18.0, 18.0, side, dtype=dtype) + 1e-4
-    A = jnp.broadcast_to(alphas[:, None], (side, side)).ravel()
-    B = jnp.broadcast_to(betas[None, :], (side, side)).ravel()
+    if jax.devices()[0].platform != "gpu":
+        print("pallas_ab.py: no GPU found", file=sys.stderr)
+        return 1
+    from gradus_tpu.compile_cache import enable_compile_cache
 
-    v = map_impact_parameters(m, x_obs, A, B)
-    xs = jnp.broadcast_to(x_obs, v.shape)
-    pf = redshift_pointfunction(m, x_obs)
+    enable_compile_cache(min_compile_time_secs=0.5)
+    side = args.side
 
-    @jax.jit
-    def shade(gp):
-        g = pf(m, gp, lam_max)
-        hit = gp.status == StatusCodes.IntersectedWithGeometry
-        return jnp.where(hit, g, jnp.nan)
-
-    ptr = PallasTracer(
-        m, geometry=d, tile_rows=tile_rows, steps_per_check=spc
-    )
-
-    # spatially-coherent tile assignment: permute rays so each kernel tile
-    # (tile_rows*128 rays) is a bh x bw pixel block instead of a raster strip
-    block = os.environ.get("AB_BLOCK", "")
-    if block:
-        bh, bw = (int(s) for s in block.split("x"))
-        assert side % bh == 0 and side % bw == 0
-        perm = (
-            np.arange(n)
-            .reshape(side // bh, bh, side // bw, bw)
-            .transpose(0, 2, 1, 3)
-            .ravel()
+    # render: parent-of-choice order (xla, kernel configs, xla) so drift shows
+    plain_render(side, 5)
+    bench_run({"BENCH_BACKEND": "xla", "BENCH_SIDE": side}, 3)
+    configs = [(128, 8)] if args.quick else [(64, 8), (128, 8), (256, 8), (128, 4), (128, 1)]
+    for block_rays, spc in configs:
+        bench_run(
+            {"BENCH_SIDE": side, "BENCH_BLOCK_RAYS": block_rays, "BENCH_SPC": spc}, 5
         )
-        inv = np.empty(n, np.int64)
-        inv[perm] = np.arange(n)
-        perm = jnp.asarray(perm)
-        inv = jnp.asarray(inv)
-        xs_t, v_t = xs[perm], v[perm]
-    else:
-        inv = None
-        xs_t, v_t = xs, v
+    plain_render(side, 5)
 
-    def run_pallas():
-        gp = ptr(xs_t, v_t, (0.0, lam_max))
-        img = shade(gp)
-        if inv is not None:
-            img = img[inv]
-            gp = jax.tree_util.tree_map(
-                lambda a: a[inv] if hasattr(a, "shape") and a.shape[:1] == (n,) else a,
-                gp,
-            )
-        return gp, img
+    plain_binning(1000, 3)
+    bench_run({"BENCH_WORKLOAD": "binning", "BENCH_BACKEND": "xla"}, 3)
+    bench_run({"BENCH_WORKLOAD": "binning"}, 3)
 
-    t0 = time.perf_counter()
-    gp_p, img_p = run_pallas()
-    jax.block_until_ready(img_p)
-    t_compile = time.perf_counter() - t0
-    print(f"pallas compile+first run: {t_compile:.1f}s")
-
-    reps = 3
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        gp_p, img_p = run_pallas()
-    jax.block_until_ready(img_p)
-    dt_p = (time.perf_counter() - t0) / reps
-    print(f"pallas: {dt_p:.3f}s/render = {n/dt_p:,.0f} rays/s")
-
-    # XLA reference
-    tracer = Tracer(m, geometry=d, min_bucket=2048, segment_iters=96)
-    gp_x = tracer(xs, v, (0.0, lam_max))
-    img_x = shade(gp_x)
-    jax.block_until_ready(img_x)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        gp_x = tracer(xs, v, (0.0, lam_max))
-        img_x = shade(gp_x)
-    jax.block_until_ready(img_x)
-    dt_x = (time.perf_counter() - t0) / reps
-    print(f"xla:    {dt_x:.3f}s/render = {n/dt_x:,.0f} rays/s")
-    print(f"speedup pallas/xla: {dt_x/dt_p:.2f}x")
-
-    a = np.asarray(img_p)
-    b = np.asarray(img_x)
-    both = np.isfinite(a) & np.isfinite(b)
-    agree_mask = (np.isfinite(a) == np.isfinite(b)).mean()
-    if both.any():
-        diff = np.abs(a[both] - b[both]) / np.maximum(np.abs(b[both]), 1e-6)
-        print(
-            f"mask agreement: {agree_mask:.5f}; rel g diff median "
-            f"{np.median(diff):.2e} p99 {np.percentile(diff, 99):.2e} "
-            f"max {diff.max():.2e}"
-        )
-    st_p = np.asarray(gp_p.status)
-    st_x = np.asarray(gp_x.status)
-    print(f"status agreement: {(st_p == st_x).mean():.5f}")
+    for backend in ("xla", "pallas"):
+        bench_run({"BENCH_WORKLOAD": "ctf", "BENCH_BACKEND": backend}, 2)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

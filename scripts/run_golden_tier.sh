@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Golden-parity gate (VERDICT r3 next #1, r4 next #1b): run the ENTIRE test
+# Golden-parity gate: run the ENTIRE test
 # suite including the slow reference-golden tier, so a red golden can never
 # ship unnoticed again.
 #
@@ -21,7 +21,7 @@ set -uo pipefail
 cd "$(dirname "$0")/.."
 
 if [[ "${1:-}" == "--fast" ]]; then
-    exec python -m pytest tests/ -q
+    exec env JAX_PLATFORMS=cpu python -m pytest tests/ -q
 fi
 
 declare -a RED=()
@@ -31,7 +31,7 @@ FAIL=0
 
 run_file() {
     # -m "" overrides pytest.ini's `-m "not slow"` default gate.
-    timeout 3600 python -m pytest "$1" -q -m "" -p no:cacheprovider
+    timeout 3600 env JAX_PLATFORMS=cpu python -m pytest "$1" -q -m "" -p no:cacheprovider
 }
 
 for f in tests/test_*.py; do

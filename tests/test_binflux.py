@@ -144,7 +144,7 @@ def test_semianalytic_lagtransfer_golden():
 
 def test_binflux_sharded_psum(reference_tf):
     """`binflux(axis_name=...)` inside shard_map over the ray axis returns
-    the identical histogram on every device (VERDICT r4 next #4)."""
+    the identical histogram on every device."""
     from jax.sharding import Mesh, PartitionSpec as P
     from jax.experimental.shard_map import shard_map
 

@@ -49,7 +49,7 @@ def test_shaped_chart_capture_radius():
 def test_shaped_chart_deformed_metric():
     """Deformed-metric render near the horizon through the shaped chart: the
     JP capture surface from event_horizon feeds the chart and tracing
-    terminates cleanly (VERDICT item 9 done-criterion)."""
+    terminates cleanly."""
     m = gt.JohannsenPsaltisMetric(M=1.0, a=0.6, eps3=2.0)
     chart = gt.event_horizon_chart(m)
     assert np.all(np.asarray(chart.rs) > 0)
@@ -67,7 +67,7 @@ def test_shaped_chart_deformed_metric():
 
 def test_polish_doughnut_generic_matches_schwarzschild():
     """Metric-generic isobar potential at a=0 reproduces the Schwarzschild
-    closed form (VERDICT item 9 done-criterion)."""
+    closed form."""
     d_closed = gt.PolishDoughnut(M=1.0, ell=3.8, r_cusp=4.6)
     d_generic = gt.PolishDoughnut(
         M=1.0, ell=3.8, r_cusp=4.6, metric=gt.KerrMetric(M=1.0, a=0.0)

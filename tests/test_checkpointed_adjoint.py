@@ -1,4 +1,4 @@
-"""True reverse-mode adjoint through the integrator (VERDICT r2 next #5).
+"""True reverse-mode adjoint through the integrator.
 
 A 128-parameter spline disc surface enters the traced dynamics (the crossing
 indicator); `jax.grad` of a render-like loss flows through the checkpointed

@@ -1,4 +1,4 @@
-"""Corona adaptive-sampling specialization (VERDICT r2 next #3).
+"""Corona adaptive-sampling specialization.
 
 Reference: `src/corona/adaptive-sample.jl` — CoronaGridValues payload,
 g/J refinement metric, (r, φ) grid binning. The adaptive sampler must match

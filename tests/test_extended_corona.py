@@ -83,7 +83,7 @@ def test_ring_farfield_slope(ring_profile):
 
 def test_ring_small_radius_matches_lamppost(kerr_disc):
     """r → 0 axisymmetric limit: ring emissivity approaches the on-axis
-    lamppost sweep (VERDICT round-1 done-criterion)."""
+    lamppost sweep."""
     m, d = kerr_disc
     h = 5.0
     lamp = gt.emissivity_profile(m, d, gt.LampPostModel(h=h), n_samples=400)
@@ -195,7 +195,7 @@ def test_timedep_lagtransfer(kerr_disc):
 
 @pytest.mark.slow
 def test_disc_corona_lag_frequency_grows_with_radius(kerr_disc):
-    """End-to-end disc-corona reverberation (VERDICT r2 next #7):
+    """End-to-end disc-corona reverberation:
     emissivity profile → time-dependent lag transfer → τ(f). A radially
     larger corona means longer source-to-disc light paths from its outer
     rings, so the low-frequency lag must grow with the corona radius."""
@@ -238,8 +238,7 @@ def test_disc_corona_lag_frequency_grows_with_radius(kerr_disc):
 
 @pytest.mark.slow
 def test_ring_corona_n_beta_convergence(kerr_disc):
-    """Convergence in the β-slice count, INCLUDING the near field (VERDICT
-    r2 next #8 / r3 next #6 — no more |r − r_ring| > 1.5 carve-out).
+    """Convergence in the β-slice count, INCLUDING the near field.
 
     Any β-slice fan estimates the near-field ε through fold caustics (each
     slice's support edge has dρ/dδ = 0), whose β-Riemann-sum error decays
@@ -266,7 +265,7 @@ def test_ring_corona_n_beta_convergence(kerr_disc):
 
 @pytest.mark.slow
 def test_ring_corona_lag_frequency_n_beta_stable(kerr_disc):
-    """Product-level near-field stability (VERDICT r4 next #6): the
+    """Product-level near-field stability: the
     lag-frequency spectrum of a ring corona must be n_beta-stable THROUGH the
     near field with the default dispatch. The disc inner region sits within
     1.5 r_g of the r=3 ring, so the pre-hybrid fan default wobbled the
@@ -306,7 +305,7 @@ def test_ring_corona_lag_frequency_n_beta_stable(kerr_disc):
 
 @pytest.mark.slow
 def test_refine_for_target_differentiable(kerr_disc):
-    """Differentiable target polish (VERDICT r2 next #9): forward-mode
+    """Differentiable target polish: forward-mode
     gradient of the off-axis continuum arrival time w.r.t. the corona
     position (r, h) matches central finite differences."""
     from gradus_tpu.transfer.targets import optimize_for_target, refine_for_target

@@ -1,4 +1,4 @@
-"""Small parity sweep (VERDICT r2 next #10): ThickDisc AD surface
+"""Small parity sweep: ThickDisc AD surface
 normals/tangents (thick-disc.jl:31-82), shoelace/in-polygon utilities
 (geometry.jl:55-123), Fuerst-Wu (r_k, n) PolishDoughnut
 (polish-doughnut.jl:1-124)."""

@@ -1,5 +1,4 @@
-"""Ground-truthed CTF moment anchors (VERDICT r4 next #2 — the decisive
-experiment).
+"""Ground-truthed CTF moment anchors.
 
 `scripts/groundtruth_ctf_moment.py` recomputes the disputed raw-sample moment
 anchors through a pipeline that shares no derivative pathway with the

@@ -1,8 +1,7 @@
 """f32 ↔ f64 self-parity: the BASELINE.md precision story.
 
 BASELINE north-star: "match Gradus within rtol = 1e-5 on the redshift image".
-The TPU production path is float32 (f64 is emulated on TPU); this test
-quantifies the f32 error budget against the f64 CPU path on the flagship
+The production path is float32; this test quantifies the f32 error budget against the f64 CPU path on the flagship
 Kerr a=0.998 thin-disc redshift render. Measured budget (48², i=75°):
 hit-mask agreement 100%, redshift relative error median ~8e-7 /
 p95 ~1.3e-5 / max ~2e-3 (disc-edge pixels where the intersection point
@@ -58,9 +57,9 @@ def test_f32_f64_redshift_image_parity():
 
 @pytest.mark.slow
 def test_f32_f64_lineprofile_parity_production_scale():
-    """f32 vs f64 at the HARDWARE BENCH config (VERDICT r4 next #7): 100
-    radii, N=80, 180 bins — the exact TransferFunctionMethod product the TPU
-    runs. Measured budgets (full config, CPU): median 3.1e-4, p90 7.8e-4,
+    """f32 vs f64 at the HARDWARE BENCH config: 100
+    radii, N=80, 180 bins — the exact TransferFunctionMethod product the
+    benchmark runs. Measured budgets (full config, CPU): median 3.1e-4, p90 7.8e-4,
     p99 5.0e-3, max 8.2e-3 — the bulk-bins ≤1e-3 target is met; the tail is
     near-edge bins whose √-edge integrand is resolution-limited in f32."""
     from gradus_tpu.transfer import transferfunctions, integrate_lineprofile

@@ -2,8 +2,8 @@
 
 The reference keeps `redshift_function(::KerrMetric, gp)` (redshift.jl:166-203)
 both as the Kerr fast path and as an independent cross-check of the generic
-`_redshift_dotproduct` (redshift.jl:204-220). These tests serve both roles for
-the TPU build (VERDICT r4 next #5): the closed-form machinery is derived
+`_redshift_dotproduct` (redshift.jl:204-220). These tests serve both roles
+here: the closed-form machinery is derived
 independently of `CircularOrbits`/`PlungingInterpolation`, so agreement here
 validates BOTH redshift implementations.
 """

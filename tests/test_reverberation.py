@@ -62,7 +62,7 @@ def test_sum_freq_golden(lag_spectrum):
 def test_tau_golden(lag_spectrum):
     """τ[131] vs the reference golden (reverberation.jl:44, its rtol 1e-2).
 
-    SEMANTIC DIFF (VERDICT r4 next #8, weak #8): the 2D (g, t) binning was
+    SEMANTIC DIFF: the 2D (g, t) binning was
     compared line-by-line against `_integrate_transfer_problem!` (matrix
     variant, integration.jl:374-453) and the smoke config
     (reverberation.jl:1-45). Verified IDENTICAL semantics: geometric radial
@@ -79,7 +79,7 @@ def test_tau_golden(lag_spectrum):
     O(∂t/∂g✶·1e-6), orders below the residual. The remaining +2.4% therefore
     localizes to the branch-table representation (our dense fixed-g✶
     resampled grid vs the reference's raw-sample interpolants) — the one
-    intentional TPU-first design difference (fixed shapes) — whose internal
+    intentional batched-design difference (fixed shapes) — whose internal
     convergence is established below.
 
     Round-4 convergence study (scripts/debug notes): our value 9.5498 sits

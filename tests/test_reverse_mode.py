@@ -1,5 +1,4 @@
-"""Reverse-mode gradients through the integrator (VERDICT item 5 / BASELINE
-gradient north-star): jax.grad works through the while_loop trace via the
+"""Reverse-mode gradients through the integrator: jax.grad works through the while_loop trace via the
 forward-Jacobian custom VJP, and agrees with jacfwd and finite differences
 on (spin, disc inner radius) through a small render and through the fittable
 LineProfileModel."""

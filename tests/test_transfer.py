@@ -119,7 +119,7 @@ def _ctf_moment(a, angle, re, **kwargs):
 # OUR pinned values sit within 0.17-0.91% of the truth. The paragraph below
 # is the original (round-4) conditioning analysis that predicted this.
 #
-# CONDITIONING CAVEAT (round-4 investigation, scripts/debug_ctf_*.py): the
+# CONDITIONING CAVEAT (round-4 investigation): the
 # raw moment averages f over ~34 golden-section probes that converge
 # geometrically INTO the transfer function's 0·∞ endpoints, where
 # f = √(g✶(1−g✶))·(gmax−gmin)·J multiplies a vanishing factor by a diverging
@@ -193,8 +193,7 @@ def test_ctf_moment_re4_golden():
     ],
 )
 def test_ctf_moment_large_radius_golden(re, golden):
-    """Large-radius moment anchors (VERDICT r4 next #8; reference
-    cunningham-transfer-functions.jl:38-39, rtol 1e-2) — the regime the
+    """Large-radius moment anchors — the regime the
     asymmetric near-extremal gate is calibrated for (rₑ=1000 matches to
     0.02%)."""
     np.testing.assert_allclose(_ctf_moment(0.998, 30.0, re), golden, rtol=1e-2)
